@@ -1,6 +1,6 @@
 CXX ?= g++
 CXXFLAGS ?= -O3 -std=c++20 -fPIC -Wall -Wextra
-NATIVE_SO := stock_market_monte_carlo_tpu/native/libsmmc_native.so
+NATIVE_SO := stock_market_monte_carlo_jax/native/libsmmc_native.so
 
 .PHONY: all native test bench clean
 

@@ -17,8 +17,9 @@ import time
 
 import numpy as np
 
-import stock_market_monte_carlo_tpu as smmc
-from stock_market_monte_carlo_tpu.config import EngineOptions
+import stock_market_monte_carlo_jax as smmc
+from stock_market_monte_carlo_jax.config import EngineOptions
+from stock_market_monte_carlo_jax.utils.device import device_record
 
 
 def _line(name, paths, periods, seconds, extra=None):
@@ -27,7 +28,8 @@ def _line(name, paths, periods, seconds, extra=None):
         "value": round(paths / seconds, 1),
         "unit": "paths/s",
         "extra": {"n_paths": paths, "n_periods": periods,
-                  "elapsed_s": round(seconds, 4), **(extra or {})},
+                  "elapsed_s": round(seconds, 4), **(extra or {}),
+                  "device": device_record()},
     }
     print(json.dumps(rec), flush=True)
 
@@ -89,27 +91,23 @@ def main():
         "qmc_error_ratio": float(f"{err_s / max(err_p, 1e-12):.3f}"),
     })
 
-    # 5. 1B paths fused reduction (reduceBlock scale) — CLT turbo sampler
+    # 5. 1B paths fused reduction (reduceBlock scale), Gaussian month loop
     n5 = 10**8 if quick else 10**9
-    opts_clt = EngineOptions(gaussian_sampler="clt")
     # warm at the RUN's shape: the fused dispatch compiles one scan
     # program per (full-block, exact-tail) length pair, and a chunk-
     # shaped warm leaves those compiles inside the timed region
-    # (optimization_log v28 note; the drill re-learned this too)
-    smmc.simulate_stats(gauss, n5, t_mo, seed=1, options=opts_clt)
+    smmc.simulate_stats(gauss, n5, t_mo, seed=1, options=opts)
     t0 = time.perf_counter()
-    res = smmc.simulate_stats(gauss, n5, t_mo, seed=5, options=opts_clt)
+    res = smmc.simulate_stats(gauss, n5, t_mo, seed=5, options=opts)
     _line("billion_path_fused_hist", n5, t_mo, time.perf_counter() - t0,
           {"mean": round(res.mean, 2), "std": round(res.std, 2),
-           "hist_mass": float(res.histogram_counts.sum()),
-           "sampler": "clt"})
+           "hist_mass": float(res.histogram_counts.sum())})
 
     # 6. device-side percentile bands at scale (keepdata capability with
     # O(T) host transfer, engine/bands.py)
     n6 = 10**6 if quick else 10**7
-    # warm with the EXACT timed shape: band pallas_calls are compiled
-    # per grid size, so a smaller warm-up would leave a fresh Mosaic
-    # compile (minutes) inside the timed region
+    # warm with the EXACT timed shape, so no compile lands inside the
+    # timed region
     smmc.simulate_bands(gauss, n6, t_mo, seed=1)  # warm
     t0 = time.perf_counter()
     b = smmc.simulate_bands(gauss, n6, t_mo, seed=6)
@@ -118,18 +116,14 @@ def main():
            "host_transfer_bytes": int(b.month_hist.nbytes)})
 
     # 7. CDF band mode (band_mode="cdf"): config 6's capability via
-    # counts below 32 analytic thresholds per month (no indicator
-    # relayout/gemm) + probit inversion — Pallas backend only
-    from stock_market_monte_carlo_tpu.engine.engine import resolve_backend
-
-    if resolve_backend(opts) == "pallas":
-        smmc.simulate_bands(gauss, n6, t_mo, seed=1,
-                            band_mode="cdf")  # warm (exact timed shape)
-        t0 = time.perf_counter()
-        c = smmc.simulate_bands(gauss, n6, t_mo, seed=6, band_mode="cdf")
-        _line("trajectory_bands_cdf", n6, t_mo, time.perf_counter() - t0,
-              {"median_final": round(float(c.band(0.5)[-1]), 1),
-               "host_transfer_bytes": int(c.month_hist.nbytes)})
+    # counts below 32 analytic thresholds per month + probit inversion
+    smmc.simulate_bands(gauss, n6, t_mo, seed=1,
+                        band_mode="cdf")  # warm (exact timed shape)
+    t0 = time.perf_counter()
+    c = smmc.simulate_bands(gauss, n6, t_mo, seed=6, band_mode="cdf")
+    _line("trajectory_bands_cdf", n6, t_mo, time.perf_counter() - t0,
+          {"median_final": round(float(c.band(0.5)[-1]), 1),
+           "host_transfer_bytes": int(c.month_hist.nbytes)})
 
     # 8. terminal-law sampler (EngineOptions(terminal_law=True)): V_T
     # drawn in ONE step from its exact T-fold-convolution law — the
@@ -141,8 +135,6 @@ def main():
     for name, model in (("gaussian", gauss), ("historical", hist)):
         smmc.simulate_stats(model, n8, t_mo, seed=1,
                             options=law)  # warm + fit AT THE RUN SHAPE
-        #                     (fused scan lengths compile here, not in
-        #                      the timed region — v28 note)
         t0 = time.perf_counter()
         res = smmc.simulate_stats(model, n8, t_mo, seed=8, options=law)
         _line(f"terminal_law_{name}", n8, t_mo,

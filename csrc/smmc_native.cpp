@@ -1,9 +1,9 @@
-// Native runtime components for stock_market_monte_carlo_tpu.
+// Native runtime components for stock_market_monte_carlo_jax.
 //
 // The reference implements its runtime in C++ (CSV parsing via
 // fast-cpp-csv-parser, file writers in src/helpers.cpp, Sobol generators in
-// include/sobol_joekuo/). These are the TPU framework's equivalents, exposed
-// through a C ABI consumed via ctypes (stock_market_monte_carlo_tpu/native).
+// include/sobol_joekuo/). These are this framework's equivalents, exposed
+// through a C ABI consumed via ctypes (stock_market_monte_carlo_jax/native).
 // Python falls back to pure-Python implementations when this library is not
 // built, so it is an accelerator, not a dependency.
 //

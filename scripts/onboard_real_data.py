@@ -106,11 +106,11 @@ def cross_check_law(returns: np.ndarray, n_paths: int, n_periods: int,
     """Simulate on the REAL table and compare mean/std/quantiles to the
     exact iid-bootstrap FFT law (ops/analytic) — the same oracle the
     sampler was validated against at 1e9 paths on the synthetic table
-    (scripts/bootstrap_law_validation_tpu.py)."""
+    (scripts/bootstrap_law_validation.py)."""
     import jax
 
-    import stock_market_monte_carlo_tpu as smmc
-    from stock_market_monte_carlo_tpu.ops import analytic as an
+    import stock_market_monte_carlo_jax as smmc
+    from stock_market_monte_carlo_jax.ops import analytic as an
 
     backend = jax.default_backend()
     report.append(f"- cross-check backend: {backend}, {n_paths:,} paths "
@@ -162,14 +162,14 @@ def cross_check_law(returns: np.ndarray, n_paths: int, n_periods: int,
 
 
 def maybe_bench(returns: np.ndarray, report: list) -> None:
-    """Headline-style timing on the real table (TPU only; informational)."""
+    """Headline-style timing on the real table (GPU only; informational)."""
     import jax
 
-    if jax.default_backend() != "tpu":
-        report.append("- bench skipped (no TPU in this process)")
+    if jax.devices()[0].platform != "gpu":
+        report.append("- bench skipped (no GPU in this process)")
         return
-    import stock_market_monte_carlo_tpu as smmc
-    from stock_market_monte_carlo_tpu.config import EngineOptions
+    import stock_market_monte_carlo_jax as smmc
+    from stock_market_monte_carlo_jax.config import EngineOptions
 
     model = smmc.HistoricalBootstrap(np.asarray(returns, np.float32))
     opts = EngineOptions(chunk_paths=2 ** 24, terminal_law=True)
@@ -181,7 +181,8 @@ def maybe_bench(returns: np.ndarray, report: list) -> None:
         smmc.simulate_stats(model, n, t, seed=7, options=opts)
         best = min(best, time.perf_counter() - t0)
     report.append(f"- bench (real table, terminal-law {n:,} x {t}): "
-                  f"{best:.3f} s = {n / best / 1e9:.2f} B paths/s/chip")
+                  f"{best:.3f} s = {n / best / 1e9:.2f} B paths/s on "
+                  f"{jax.devices()[0].device_kind}")
 
 
 def main() -> int:
@@ -193,7 +194,7 @@ def main() -> int:
                          "yfinance) to data/SP500_monthly_returns.csv")
     ap.add_argument("--bench", action="store_true",
                     help="also run the 100M x 360 terminal-law bench on "
-                         "the real table (TPU)")
+                         "the real table (GPU)")
     ap.add_argument("--n-paths", type=int, default=1 << 21,
                     help="MC paths for the law cross-check (default 2^21)")
     ap.add_argument("--n-periods", type=int, default=360)
@@ -204,11 +205,11 @@ def main() -> int:
     if args.csv:
         csv_path = args.csv
     elif args.fetch:
-        from stock_market_monte_carlo_tpu.data.fetch import fetch_sp500
+        from stock_market_monte_carlo_jax.data.fetch import fetch_sp500
 
         csv_path = fetch_sp500()
     else:
-        from stock_market_monte_carlo_tpu.data.loader import (
+        from stock_market_monte_carlo_jax.data.loader import (
             SYNTHETIC_CSV,
             default_returns_path,
         )
@@ -222,7 +223,7 @@ def main() -> int:
             return 2
     report.append(f"- source: `{csv_path}`")
 
-    from stock_market_monte_carlo_tpu.data.loader import (
+    from stock_market_monte_carlo_jax.data.loader import (
         read_historical_returns,
     )
 

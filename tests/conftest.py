@@ -1,17 +1,23 @@
 """Test harness configuration.
 
-Tests run on an 8-device *virtual CPU mesh* (the driver separately dry-runs
-the multi-chip path, and the bench harness runs on real TPU): environment
-must be set before JAX initializes its backends.
+Tests run on an 8-device *virtual CPU mesh*: the environment must be set
+before JAX initializes its backends. ``SMMC_TEST_ON_DEVICE=1`` switches
+that CPU forcing off, so ``pytest -m gpu`` runs the GPU tests on the card
+(chip_smoke.py sets it before it calls pytest in-process). Whether a GPU
+is present is decided in the ``gpu`` fixture, never at import.
 """
 
 import os
 
-_USE_TPU = os.environ.get("SMMC_TEST_TPU") == "1"
+_ON_DEVICE = os.environ.get("SMMC_TEST_ON_DEVICE") == "1"
 
-if not _USE_TPU:
+if not _ON_DEVICE:
     os.environ.setdefault("JAX_PLATFORM_NAME", "cpu")
     os.environ["JAX_PLATFORMS"] = "cpu"
+    # no persistent compile cache for CPU test runs (and the processes
+    # they spawn): loading a cached XLA:CPU executable logs machine-feature
+    # E-lines that tests/test_xla_warnings.py treats as unexpected
+    os.environ.setdefault("JAX_ENABLE_COMPILATION_CACHE", "false")
     _flags = os.environ.get("XLA_FLAGS", "")
     if "xla_force_host_platform_device_count" not in _flags:
         os.environ["XLA_FLAGS"] = (
@@ -20,7 +26,7 @@ if not _USE_TPU:
 
 import jax  # noqa: E402
 
-if not _USE_TPU:
+if not _ON_DEVICE:
     jax.config.update("jax_platforms", "cpu")
 
 import json  # noqa: E402
@@ -55,10 +61,9 @@ def _slow_list():
 
 
 def pytest_collection_modifyitems(config, items):
-    """Tiered suite (VERDICT r4 item 7): the default ``pytest -q`` run
-    skips tests marked ``slow`` or listed in tests/slow_tests.txt
-    (mesh/interpret-heavy — the full suite costs ~20 min of wall, the
-    fast tier minutes) so build iterations are un-gated. ``--full`` /
+    """Tiered suite: the default ``pytest -q`` run skips tests marked
+    ``slow`` or listed in tests/slow_tests.txt (mesh-heavy and large-grid
+    variants) so build iterations are un-gated. ``--full`` /
     ``SMMC_FULL=1`` runs everything — the round-end check and CI-rigor
     runs use that. An explicit ``-m`` selection disables the tier
     filter entirely (the user asked for a specific marker set)."""
@@ -89,10 +94,9 @@ def pytest_runtest_logreport(report):
 
 
 def pytest_sessionfinish(session, exitstatus):
-    """Skip accounting (VERDICT r4 item 8): with SMMC_SKIP_MANIFEST=1 the
-    run writes SKIPS.json at the repo root — every skipped test and its
-    reason — so a pass->skip regression is visible round over round
-    (checked in by the round-end full-suite run)."""
+    """Skip accounting: with SMMC_SKIP_MANIFEST=1 the run writes
+    SKIPS.json at the repo root — every skipped test and its reason — so
+    a pass->skip regression is visible between runs."""
     if os.environ.get("SMMC_SKIP_MANIFEST") != "1":
         return
     path = os.path.join(_REPO, "SKIPS.json")
@@ -108,7 +112,7 @@ def pytest_sessionfinish(session, exitstatus):
 
 @pytest.fixture(scope="session")
 def historical_table():
-    from stock_market_monte_carlo_tpu.data.loader import (
+    from stock_market_monte_carlo_jax.data.loader import (
         SYNTHETIC_CSV,
         read_historical_returns,
     )
@@ -123,3 +127,14 @@ def mesh8():
     devices = np.asarray(jax.devices("cpu")[:8])
     assert devices.size == 8, "expected 8 virtual CPU devices"
     return Mesh(devices, ("paths",))
+
+
+@pytest.fixture(scope="session")
+def gpu():
+    """The first device, when it is a GPU; otherwise the test skips."""
+    dev = jax.devices()[0]
+    if dev.platform != "gpu":
+        pytest.skip(f"needs a GPU (found {dev.platform}); run "
+                    "`SMMC_TEST_ON_DEVICE=1 python -m pytest -m gpu tests/` "
+                    "on one")
+    return dev

@@ -5,8 +5,8 @@ distribution for the Gaussian market — the independent CPU reference the
 import numpy as np
 import pytest
 
-import stock_market_monte_carlo_tpu as smmc
-from stock_market_monte_carlo_tpu.ops import analytic as an
+import stock_market_monte_carlo_jax as smmc
+from stock_market_monte_carlo_jax.ops import analytic as an
 
 
 def test_oracle_moments_match_closed_form():
@@ -29,8 +29,8 @@ def test_power_sum_extraction_well_conditioned():
     the IDENTICAL final values to ~1e-6 — the uncentered accumulation had
     a 1e-4 std floor (f32 reassociation noise amplified ~40-600x by the
     s2/n - mean^2 cancellation)."""
-    from stock_market_monte_carlo_tpu.config import EngineOptions
-    from stock_market_monte_carlo_tpu.models.strategies import (
+    from stock_market_monte_carlo_jax.config import EngineOptions
+    from stock_market_monte_carlo_jax.models.strategies import (
         FixedPercentWithdrawal,
     )
 
@@ -59,7 +59,7 @@ def test_oracle_t1_is_shifted_normal():
     """One month: V = v0*(1 + r/100), quantiles are exactly normal."""
     import jax.numpy as jnp
 
-    from stock_market_monte_carlo_tpu.ops.normal import normal_icdf
+    from stock_market_monte_carlo_jax.ops.normal import normal_icdf
 
     qs = [0.01, 0.25, 0.5, 0.75, 0.99]
     got = an.final_value_quantiles(0.5, 10 / 12, 1, 1000.0, qs)
@@ -95,7 +95,7 @@ def _q(qs, n_grid):
 def test_engine_meets_1e3_bar_against_oracle():
     """CPU engine (XLA threefry) at 2^21 paths: mean/std/quantiles within
     1e-3 of the independent oracle (BASELINE.md north-star tolerance).
-    The TPU kernels are held to the same bar in tests/test_tpu_only.py."""
+    The GPU is held to the same bar in tests/test_gpu.py."""
     n, t = 1 << 20, 120
     res = smmc.simulate_stats(smmc.GaussianReturns(), n, t, seed=11)
     mean_a, std_a = an.final_value_moments(0.5, 10 / 12, t, 1000.0)
@@ -105,8 +105,8 @@ def test_engine_meets_1e3_bar_against_oracle():
     want = an.final_value_quantiles(0.5, 10 / 12, t, 1000.0, qs)
     got_map = res.quantiles(qs)
     got = np.asarray([got_map[q] for q in qs])
-    # MC noise at 2^20 paths; the strict 1e-3 bar runs at 2^24 on TPU
-    # (tests/test_tpu_only.py::test_pallas_meets_1e3_bar_against_oracle)
+    # MC noise at 2^20 paths; the strict 1e-3 bar runs at 2^24 on the GPU
+    # (tests/test_gpu.py::test_gpu_meets_1e3_bar_against_oracle)
     np.testing.assert_allclose(got, want, rtol=2e-3)
 
 

@@ -3,11 +3,12 @@ with O(T * n_bins) host transfer — the reference's keep-data capability
 (src/simulations.cpp:139-202) without the O(N*T) memory."""
 
 import numpy as np
+import pytest
 
-import stock_market_monte_carlo_tpu as smmc
-from stock_market_monte_carlo_tpu.config import EngineOptions
-from stock_market_monte_carlo_tpu.engine.engine import KEY_TILE
-from stock_market_monte_carlo_tpu.models.strategies import (
+import stock_market_monte_carlo_jax as smmc
+from stock_market_monte_carlo_jax.config import EngineOptions
+from stock_market_monte_carlo_jax.engine.engine import KEY_TILE
+from stock_market_monte_carlo_jax.models.strategies import (
     FixedAmountWithdrawal,
 )
 
@@ -66,6 +67,44 @@ def test_bands_with_depleting_withdrawal():
     assert np.all(med[11:] == 0.0)   # depleted mass -> exact zero
 
 
+@pytest.mark.parametrize("case", ["gaussian", "historical_percent",
+                                  "fixed_amount"])
+def test_month_hist_matches_numpy_counts(case):
+    """The per-month histogram (one scatter over month-major cells) equals
+    a numpy count of the same trajectories binned by the same z-grid."""
+    from stock_market_monte_carlo_jax.models.strategies import (
+        FixedPercentWithdrawal,
+    )
+
+    n, t, nb = KEY_TILE + 321, 7, 64
+    model, strat = {
+        "gaussian": (GAUSS, smmc.NoWithdrawal()),
+        "historical_percent": (smmc.HistoricalBootstrap.from_csv(),
+                               FixedPercentWithdrawal(1.0)),
+        "fixed_amount": (GAUSS, FixedAmountWithdrawal(amount=40.0)),
+    }[case]
+    b = smmc.simulate_bands(model, n, t, seed=9, strategy=strat,
+                            n_bins=nb, sample_paths=0)
+    traj = np.asarray(smmc.simulate_paths(model, n, t, seed=9,
+                                          strategy=strat), np.float32)
+    if case == "fixed_amount":
+        z = traj * (1.0 / b.scales).astype(np.float32)[None, :]
+        idx = np.clip(np.floor(z * nb).astype(np.int64) + 1, 1, nb + 1)
+        idx = np.where(traj <= 0.0, 0, idx)
+    else:
+        logv = np.log(np.maximum(traj, np.float32(1e-37)))
+        z = ((logv - b.centers.astype(np.float32)[None, :])
+             * (1.0 / b.scales).astype(np.float32)[None, :])
+        raw = np.floor((z + np.float32(12.0)) * np.float32(nb / 24.0))
+        idx = np.clip(raw.astype(np.int64) + 1, 0, nb + 1)
+    want = np.stack([np.bincount(idx[:, m], minlength=nb + 2)
+                     for m in range(t + 1)])
+    # f32 log/multiply may round a value across a bin edge differently
+    # in numpy and XLA: allow a few paths per month, never lost mass
+    np.testing.assert_array_equal(b.month_hist.sum(axis=1), n)
+    assert np.abs(b.month_hist - want).sum() <= 2 * 4 * (t + 1)
+
+
 def test_bands_progress_callback():
     calls = []
     smmc.simulate_bands(
@@ -76,49 +115,8 @@ def test_bands_progress_callback():
     assert calls[-1][0] == 2 * KEY_TILE
 
 
-def test_fused_pallas_bands_composition():
-    """The fused Pallas band kernel (ops/pallas_bands.py) through the
-    TPU-semantics interpreter: exact per-month mass accounting (every
-    month row holds exactly n paths; padding and dead months land in the
-    discard cell), ragged chunk, historical model + withdrawal strategy.
-    Statistical band parity vs the XLA path runs on hardware
-    (tests/test_tpu_only.py::test_pallas_bands_statistical_parity_vs_xla)."""
-    from stock_market_monte_carlo_tpu.models.strategies import (
-        FixedPercentWithdrawal,
-    )
-
-    opts = EngineOptions(backend="pallas", chunk_paths=KEY_TILE)
-    h = smmc.HistoricalBootstrap.from_csv()
-    n, t = KEY_TILE + 100, 5   # ragged -> masked lanes exercise discard
-    b = smmc.simulate_bands(h, n, t, seed=2,
-                            strategy=FixedPercentWithdrawal(1.0),
-                            options=opts, n_bins=256, sample_paths=0)
-    assert b.month_hist.shape == (t + 1, 256 + 2)
-    np.testing.assert_array_equal(b.month_hist.sum(axis=1),
-                                  np.full(t + 1, n))
-    assert np.isfinite(b.values).all()
-    # month 0 is the exact v0 point mass
-    assert b.month_hist[0].max() == n
-
-
-def test_fused_pallas_bands_chunk_invariance():
-    """Counts must be identical across chunk splits (tile-keyed streams),
-    through the Pallas path."""
-    h = smmc.HistoricalBootstrap.from_csv()
-    n, t = 2 * KEY_TILE, 4
-    a = smmc.simulate_bands(
-        h, n, t, seed=5, n_bins=256, sample_paths=0,
-        options=EngineOptions(backend="pallas", chunk_paths=KEY_TILE),
-    )
-    b = smmc.simulate_bands(
-        h, n, t, seed=5, n_bins=256, sample_paths=0,
-        options=EngineOptions(backend="pallas", chunk_paths=2 * KEY_TILE),
-    )
-    np.testing.assert_array_equal(a.month_hist, b.month_hist)
-
-
 def test_visualize_bands_cli(tmp_path, monkeypatch):
-    from stock_market_monte_carlo_tpu.cli.main import main
+    from stock_market_monte_carlo_jax.cli.main import main
 
     monkeypatch.chdir(tmp_path)
     main(["visualize-bands", "12", "20000", "--model", "gaussian",
@@ -127,9 +125,9 @@ def test_visualize_bands_cli(tmp_path, monkeypatch):
 
 
 def test_bands_sharded_identical_to_single_device(mesh8):
-    """Bands over a mesh: per-month histograms psum over ICI; counter
-    streams make the counts IDENTICAL to the single-device run (XLA
-    backend: full fidelity on the CPU mesh), including a ragged tail."""
+    """Bands over a mesh: per-month histograms psum between devices;
+    counter streams make the counts IDENTICAL to the single-device run,
+    including a ragged tail."""
     n, t = 2 * KEY_TILE + 777, 18
     a = smmc.simulate_bands(GAUSS, n, t, seed=4, sample_paths=0,
                             options=EngineOptions(chunk_paths=KEY_TILE))
@@ -152,33 +150,12 @@ def test_bands_sharded_counts_exact_past_f32_range(mesh8):
     assert b.month_hist.sum(axis=1).tolist() == [n] * (t + 1)
 
 
-def test_fused_pallas_bands_sharded_composition(mesh8):
-    """The fused band kernel under shard_map on the mesh (TPU-semantics
-    interpreter off-TPU): mass accounting must hold across devices."""
-    from stock_market_monte_carlo_tpu.models.strategies import (
-        FixedPercentWithdrawal,
-    )
-
-    h = smmc.HistoricalBootstrap.from_csv()
-    n, t = 2 * KEY_TILE + 100, 4
-    b = smmc.simulate_bands(
-        h, n, t, seed=2, strategy=FixedPercentWithdrawal(1.0),
-        options=EngineOptions(backend="pallas", chunk_paths=KEY_TILE),
-        n_bins=256, sample_paths=0, mesh=mesh8,
-    )
-    np.testing.assert_array_equal(b.month_hist.sum(axis=1),
-                                  np.full(t + 1, n))
-
-
 # ---------------------------------------------------------------------------
 # CDF band mode (band_mode="cdf"): per-month counts below K
-# analytically-placed thresholds + probit-space host inversion
-# (ops/pallas_bands.pallas_chunk_month_cdf, ops/reductions.
-# cdf_band_quantiles). Statistical band parity vs the hist mode runs on
-# hardware (tests/test_tpu_only.py::test_cdf_bands_parity_vs_hist —
-# SAME streams, so the comparison is sample-exact); here the
-# TPU-semantics interpreter checks composition, invariants, and the
-# inversion against numpy oracles.
+# analytically-placed thresholds (engine/bands._chunk_month_cdf) +
+# probit-space host inversion (ops/reductions.cdf_band_quantiles). It
+# counts the SAME sample as the hist mode (identical streams), so the
+# counts are checked against a numpy count over the exported trajectories.
 # ---------------------------------------------------------------------------
 
 
@@ -186,7 +163,7 @@ def test_cdf_inversion_matches_exact_quantiles():
     """Probit-space interpolation of a 32-point CDF must recover exact
     sample quantiles of a realistic compound-growth sample to ~1e-3 z
     (~1e-4 relative value) — sharper than the hist mode's bin width."""
-    from stock_market_monte_carlo_tpu.ops.reductions import (
+    from stock_market_monte_carlo_jax.ops.reductions import (
         cdf_band_quantiles, norm_icdf64,
     )
 
@@ -218,7 +195,7 @@ def test_cdf_inversion_matches_exact_quantiles():
 
 
 def test_cdf_inversion_depleted_and_clamp():
-    from stock_market_monte_carlo_tpu.ops.reductions import (
+    from stock_market_monte_carlo_jax.ops.reductions import (
         cdf_band_quantiles,
     )
 
@@ -240,18 +217,20 @@ def test_cdf_inversion_depleted_and_clamp():
 
 
 def test_cdf_bands_composition_and_month0():
-    """CDF mode through the TPU-semantics interpreter: counts monotone in
-    k, bounded by n, month 0 an exact v0 indicator row, values[:, 0] the
-    initial capital, historical model + percent withdrawal, ragged."""
-    from stock_market_monte_carlo_tpu.models.strategies import (
+    """CDF mode: counts monotone in k, bounded by n, month 0 an exact v0
+    indicator row, values[:, 0] the initial capital, historical model +
+    percent withdrawal, ragged — and every count equal to a numpy count
+    of the same trajectories below the same thresholds."""
+    from stock_market_monte_carlo_jax.models.strategies import (
         FixedPercentWithdrawal,
     )
 
     h = smmc.HistoricalBootstrap.from_csv()
     n, t = KEY_TILE + 100, 5
+    strat = FixedPercentWithdrawal(1.0)
     b = smmc.simulate_bands(
-        h, n, t, seed=2, strategy=FixedPercentWithdrawal(1.0),
-        options=EngineOptions(backend="pallas", chunk_paths=KEY_TILE),
+        h, n, t, seed=2, strategy=strat,
+        options=EngineOptions(chunk_paths=KEY_TILE),
         band_mode="cdf", sample_paths=0,
     )
     assert b.mode == "cdf"
@@ -264,25 +243,29 @@ def test_cdf_bands_composition_and_month0():
     np.testing.assert_array_equal(b.month_hist[0], expect0)
     np.testing.assert_allclose(b.values[:, 0], 1000.0)
     assert np.isfinite(b.values).all()
+    traj = np.asarray(smmc.simulate_paths(h, n, t, seed=2, strategy=strat))
+    thr = np.exp(b.log_thresholds).astype(np.float32)
+    want = (traj[:, :, None] < thr[None, :, :]).sum(axis=0)
+    np.testing.assert_array_equal(b.month_hist, want)
 
 
 def test_cdf_bands_chunk_invariance_and_sharded(mesh8):
     """Tile-keyed streams: CDF counts identical across chunk splits and
-    across the 8-device mesh (psum over ICI) — same contract as hist."""
+    across the 8-device mesh (int32 psum) — same contract as hist."""
     n, t = 2 * KEY_TILE + 777, 4
     kw = dict(seed=5, band_mode="cdf", sample_paths=0)
     a = smmc.simulate_bands(
         GAUSS, n, t,
-        options=EngineOptions(backend="pallas", chunk_paths=KEY_TILE),
+        options=EngineOptions(chunk_paths=KEY_TILE),
         **kw)
     b = smmc.simulate_bands(
         GAUSS, n, t,
-        options=EngineOptions(backend="pallas", chunk_paths=2 * KEY_TILE),
+        options=EngineOptions(chunk_paths=2 * KEY_TILE),
         **kw)
     np.testing.assert_array_equal(a.month_hist, b.month_hist)
     c = smmc.simulate_bands(
         GAUSS, n, t,
-        options=EngineOptions(backend="pallas", chunk_paths=KEY_TILE),
+        options=EngineOptions(chunk_paths=KEY_TILE),
         mesh=mesh8, **kw)
     np.testing.assert_array_equal(a.month_hist, c.month_hist)
     np.testing.assert_allclose(a.values, c.values, rtol=1e-12)
@@ -292,30 +275,26 @@ def test_cdf_bands_rejects_unsupported():
     import pytest
 
     h = smmc.HistoricalBootstrap.from_csv()
-    with pytest.raises(ValueError, match="Pallas"):
-        smmc.simulate_bands(h, KEY_TILE, 4, band_mode="cdf")  # xla backend
-    with pytest.raises(ValueError, match="multiple of 8"):
-        smmc.simulate_bands(
-            h, KEY_TILE, 4, band_mode="cdf", n_thresholds=20,
-            options=EngineOptions(backend="pallas"))
+    with pytest.raises(ValueError, match="n_thresholds >= 4"):
+        smmc.simulate_bands(h, KEY_TILE, 4, band_mode="cdf",
+                            n_thresholds=3)
     with pytest.raises(ValueError, match="multiplicative"):
         smmc.simulate_bands(
             h, KEY_TILE, 4, band_mode="cdf",
-            strategy=FixedAmountWithdrawal(amount=1.0),
-            options=EngineOptions(backend="pallas"))
+            strategy=FixedAmountWithdrawal(amount=1.0))
     with pytest.raises(ValueError, match="band_mode"):
         smmc.simulate_bands(h, KEY_TILE, 4, band_mode="nope")
 
 
 def test_cdf_bands_edge_shapes():
     """n_paths=1, n_periods=1, and a prime-ish ragged count through the
-    CDF kernel (full-tile padding + masking)."""
-    opts = EngineOptions(backend="pallas")
-    for n, t in ((1, 1), (8193, 1), (1, 7)):
+    CDF counts (full-tile padding + masking), and a K that is no multiple
+    of 8."""
+    for n, t, k in ((1, 1, 32), (8193, 1, 32), (1, 7, 32), (777, 3, 20)):
         b = smmc.simulate_bands(GAUSS, n, t, band_mode="cdf",
-                                sample_paths=0, options=opts)
+                                sample_paths=0, n_thresholds=k)
         assert b.values.shape == (5, t + 1)
-        assert b.month_hist.shape == (t + 1, 32)
+        assert b.month_hist.shape == (t + 1, k)
         assert (b.month_hist <= n).all()
         assert (np.diff(b.month_hist, axis=1) >= 0).all()
         np.testing.assert_allclose(b.values[:, 0], 1000.0)
@@ -328,10 +307,10 @@ def test_bands_match_fft_marginal_laws():
     quantiles must match the FFT oracle's at every probed month — full
     fidelity on CPU (XLA backend, threefry draws). Keep-fraction
     strategies shift each month's marginal by keep^t exactly."""
-    from stock_market_monte_carlo_tpu.models.strategies import (
+    from stock_market_monte_carlo_jax.models.strategies import (
         FixedPercentWithdrawal,
     )
-    from stock_market_monte_carlo_tpu.ops import analytic
+    from stock_market_monte_carlo_jax.ops import analytic
 
     n, t = 1 << 20, 60
     qs = (0.05, 0.5, 0.95)
@@ -355,7 +334,7 @@ def test_bands_match_fft_marginal_laws():
 def test_bands_historical_match_bootstrap_marginals():
     """Same oracle check for the bootstrap model: month-t marginals are
     the exact t-fold convolution of the table's point-mass law."""
-    from stock_market_monte_carlo_tpu.ops import analytic
+    from stock_market_monte_carlo_jax.ops import analytic
 
     h = smmc.HistoricalBootstrap.from_csv()
     table = np.asarray(h.returns_pct, np.float64)
@@ -376,10 +355,10 @@ def test_analytic_bands_match_sampled_and_oracle():
     the standalone per-month oracle to grid tolerance and with a 2^20-
     path sampled run to MC tolerance; keep-fraction strategies shift
     marginals exactly; fan curves still sample."""
-    from stock_market_monte_carlo_tpu.models.strategies import (
+    from stock_market_monte_carlo_jax.models.strategies import (
         FixedPercentWithdrawal,
     )
-    from stock_market_monte_carlo_tpu.ops import analytic
+    from stock_market_monte_carlo_jax.ops import analytic
 
     qs = (0.05, 0.5, 0.95)
     t = 24
@@ -415,7 +394,7 @@ def test_analytic_bands_match_sampled_and_oracle():
 def test_analytic_bands_historical_and_rejections():
     import pytest
 
-    from stock_market_monte_carlo_tpu.ops import analytic
+    from stock_market_monte_carlo_jax.ops import analytic
 
     h = smmc.HistoricalBootstrap.from_csv()
     qs = (0.25, 0.5, 0.75)
@@ -433,65 +412,3 @@ def test_analytic_bands_historical_and_rejections():
         smmc.simulate_bands(
             smmc.SobolGaussianReturns.create(n_periods=t), 1, t,
             band_mode="analytic")
-
-
-def test_counts_below_tile_impl_identity():
-    """Full-entropy identity of the three CDF count_month implementations
-    (roll / rows / bcast3d) against a numpy oracle, via a standalone
-    pallas_call in plain interpret mode. The engine-level CPU tests run
-    the hardware-PRNG kernels under the zero-bits interpreter stub, where
-    every lane is equal and a row-permutation bug (exactly what the roll
-    scheme risks) would be invisible — this drives real random inputs.
-    Hardware coverage: test_tpu_only.py::test_cdf_bands_parity_vs_hist
-    counts the identical sample as hist mode."""
-    import jax
-    import jax.numpy as jnp
-    from jax.experimental import pallas as pl
-
-    from stock_market_monte_carlo_tpu.ops import pallas_bands as pb
-    from stock_market_monte_carlo_tpu.ops.pallas_engine import TILE_ROWS
-
-    rng = np.random.default_rng(11)
-    tl = np.exp(rng.normal(size=(TILE_ROWS, 128)).astype(np.float32))
-    # a few exact collisions with thresholds to pin the strict-< edge
-    for n_thr in (8, 32, 64):
-        thr = np.exp(
-            rng.normal(size=(n_thr, 1)).astype(np.float32)
-        ) * np.ones((1, 128), np.float32)
-        thr[n_thr // 2, :] = tl[3, :]  # ties: strictly-below excludes
-        oracle = (tl[:, None, :] < thr[None, :, :]).sum(0).astype(np.int32)
-        for impl in ("roll", "rows", "bcast3d"):
-            def kernel(tl_ref, thr_ref, out_ref, impl=impl):
-                out_ref[:] = pb._counts_below_tile(
-                    tl_ref[:], thr_ref[:], n_thr, impl)
-
-            out = pl.pallas_call(
-                kernel,
-                out_shape=jax.ShapeDtypeStruct((n_thr, 128), jnp.int32),
-                interpret=True,
-            )(jnp.asarray(tl), jnp.asarray(thr))
-            np.testing.assert_array_equal(np.asarray(out), oracle,
-                                          err_msg=f"{impl} K={n_thr}")
-
-
-def test_cdf_bands_impl_identity_end_to_end():
-    """The full CDF band kernel produces identical counts under all three
-    count_month implementations (zero-bits interpreter: composition-level
-    identity; full-entropy identity is the test above + hardware)."""
-    import jax
-
-    from stock_market_monte_carlo_tpu.ops import pallas_bands as pb
-
-    key = jax.random.PRNGKey(7)
-    h = smmc.HistoricalBootstrap.from_csv()
-    coef_a = np.linspace(-2.0, 1.0, 6).astype(np.float32)
-    coef_b = np.full(6, 0.13, np.float32)
-    outs = {
-        impl: np.asarray(pb.pallas_chunk_month_cdf(
-            h, None, key, 1000.0, 0, KEY_TILE + 300, coef_a, coef_b,
-            -3.5, 34.5, n_periods=6, chunk_shape_b=2 * KEY_TILE,
-            n_thresholds=32, impl=impl))
-        for impl in ("roll", "rows", "bcast3d")
-    }
-    np.testing.assert_array_equal(outs["roll"], outs["rows"])
-    np.testing.assert_array_equal(outs["bcast3d"], outs["rows"])

@@ -8,7 +8,7 @@ import math
 import numpy as np
 import pytest
 
-from stock_market_monte_carlo_tpu.bench.compare import (
+from stock_market_monte_carlo_jax.bench.compare import (
     compare_files,
     mann_whitney_u,
 )
@@ -85,7 +85,7 @@ def test_compare_files_single_entry_format(tmp_path):
 def test_benchmark_google_cli_emits_samples(tmp_path, monkeypatch):
     import sys
 
-    from stock_market_monte_carlo_tpu.cli.main import main
+    from stock_market_monte_carlo_jax.cli.main import main
 
     out = tmp_path / "bench.json"
     main(["benchmark-google", "12", "20000", "--repetitions", "3",
@@ -175,7 +175,7 @@ def _write_plot_file(path):
 def test_benchmark_plot_option_parity(tmp_path):
     """The reference plotter's -m/-t/-r/--logx/--logy surface
     (python/benchmark_compare.py:39-93)."""
-    from stock_market_monte_carlo_tpu.bench.compare import plot_metric
+    from stock_market_monte_carlo_jax.bench.compare import plot_metric
 
     src = tmp_path / "bench.json"
     _write_plot_file(src)
@@ -201,7 +201,7 @@ def test_benchmark_plot_averages_repetitions(tmp_path):
     """A --benchmark_repetitions file has several iteration entries per
     (label, size); the curve must show their average, not whichever
     repetition came last in the file."""
-    from stock_market_monte_carlo_tpu.bench.compare import plot_metric
+    from stock_market_monte_carlo_jax.bench.compare import plot_metric
 
     src = tmp_path / "reps.json"
     entries = [
@@ -218,7 +218,7 @@ def test_benchmark_plot_averages_repetitions(tmp_path):
 
 
 def test_benchmark_plot_cli_and_errors(tmp_path):
-    from stock_market_monte_carlo_tpu.cli.main import main
+    from stock_market_monte_carlo_jax.cli.main import main
 
     src = tmp_path / "bench.json"
     _write_plot_file(src)
@@ -227,7 +227,7 @@ def test_benchmark_plot_cli_and_errors(tmp_path):
           "-t", "inverse", "-r", "gpu", "--logx", "--logy",
           "--output", str(out)])
     assert out.exists()
-    from stock_market_monte_carlo_tpu.bench.compare import plot_metric
+    from stock_market_monte_carlo_jax.bench.compare import plot_metric
 
     with pytest.raises(SystemExit):
         plot_metric(str(src), metric="no_such_metric")

@@ -1,11 +1,11 @@
-"""bench.py --mesh N: the multi-chip benchmark path, validated on the
-virtual 8-device CPU mesh (VERDICT r4 item 2).
+"""bench.py --mesh N: the multi-device benchmark path, validated on the
+virtual 8-device CPU mesh.
 
 The numbers a CPU-mesh run produces are meaningless; the CONTRACT under
 test is the plumbing — ``python bench.py <paths> <periods> --mesh 8``
 must run every workload sharded over ``paths_mesh(8)`` end-to-end and
-emit one BENCH-shaped JSON line with ``n_chips == 8`` — so the v5e-8
-north-star row (BASELINE.json) is one command on real hardware.
+emit one BENCH-shaped JSON line with ``n_chips == 8`` — so a
+multi-GPU row is one command on real devices.
 Reference surface: the multi-GPU launcher benchmark invocation
 ``benchmark_mc_gpu <n_gpus> ...`` (/root/reference/src/simulations.cu:
 576-655, examples/benchmark_mc_gpu.cpp:44-61).

@@ -1,13 +1,12 @@
 """The exact iid-bootstrap FFT law (ops/analytic.
 bootstrap_final_value_distribution) — the deterministic oracle the
-historical sliced-rotation sampler is validated against (to ~2e-4 on
-quantiles down to p = 1e-5 at 1e9 paths on hardware,
-scripts/bootstrap_law_validation_tpu.py; RESULTS.md round-3 table)."""
+historical month loop is validated against (at 1e9 paths on the device:
+scripts/bootstrap_law_validation.py)."""
 
 import numpy as np
 import pytest
 
-import stock_market_monte_carlo_tpu as smmc
+import stock_market_monte_carlo_jax as smmc
 
 
 @pytest.fixture(scope="module")
@@ -18,7 +17,7 @@ def hist_model():
 def test_bootstrap_oracle_matches_closed_form_moments(hist_model):
     """The FFT law's mean and second moment must equal the closed forms
     E[V_T] = v0 E[g]^T and E[V_T^2] = v0^2 E[g^2]^T."""
-    from stock_market_monte_carlo_tpu.ops import analytic as an
+    from stock_market_monte_carlo_jax.ops import analytic as an
 
     r = np.asarray(hist_model.returns_pct, np.float64)
     t = 240
@@ -32,7 +31,7 @@ def test_bootstrap_oracle_matches_closed_form_moments(hist_model):
 
 
 def test_bootstrap_oracle_grid_convergence(hist_model):
-    from stock_market_monte_carlo_tpu.ops import analytic as an
+    from stock_market_monte_carlo_jax.ops import analytic as an
 
     r = np.asarray(hist_model.returns_pct, np.float64)
     qs = (0.01, 0.5, 0.99)
@@ -45,7 +44,7 @@ def test_bootstrap_oracle_grid_convergence(hist_model):
 
 
 def test_bootstrap_oracle_rejects_depleting_table():
-    from stock_market_monte_carlo_tpu.ops import analytic as an
+    from stock_market_monte_carlo_jax.ops import analytic as an
 
     with pytest.raises(ValueError, match="growth <= 0"):
         an.bootstrap_final_value_distribution((-100.0, 1.0), 12)
@@ -54,7 +53,7 @@ def test_bootstrap_oracle_rejects_depleting_table():
 def test_engine_historical_matches_bootstrap_law(hist_model):
     """XLA-backend historical run (CPU-executable) vs the law: mean and
     central quantiles inside MC tolerance at 2^17 paths."""
-    from stock_market_monte_carlo_tpu.ops import analytic as an
+    from stock_market_monte_carlo_jax.ops import analytic as an
 
     n, t = 1 << 17, 120
     res = smmc.simulate_stats(hist_model, n, t, seed=11)

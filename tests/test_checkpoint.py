@@ -3,10 +3,10 @@
 import numpy as np
 import pytest
 
-import stock_market_monte_carlo_tpu as smmc
-from stock_market_monte_carlo_tpu.config import EngineOptions
-from stock_market_monte_carlo_tpu.engine import checkpoint as ckpt
-from stock_market_monte_carlo_tpu.engine.engine import KEY_TILE
+import stock_market_monte_carlo_jax as smmc
+from stock_market_monte_carlo_jax.config import EngineOptions
+from stock_market_monte_carlo_jax.engine import checkpoint as ckpt
+from stock_market_monte_carlo_jax.engine.engine import KEY_TILE
 
 GAUSS = smmc.GaussianReturns(mean_pct=0.5, std_pct=10.0 / 12)
 OPTS = EngineOptions(chunk_paths=KEY_TILE)
@@ -142,22 +142,6 @@ def test_checkpoint_cross_topology_resume(tmp_path, mesh8):
     np.testing.assert_array_equal(
         resumed.histogram_counts, fresh.histogram_counts
     )
-
-
-def test_sampler_fingerprint_uses_effective_sampler(tmp_path):
-    """On the XLA backend 'clt' falls back to the exact sampler, so the
-    fingerprint must not distinguish the two options there."""
-    n, t = 2 * KEY_TILE, 6
-    path = str(tmp_path / "run.ckpt.npz")
-    smmc.simulate_stats(
-        GAUSS, n, t, seed=1,
-        options=EngineOptions(chunk_paths=KEY_TILE, gaussian_sampler="clt"),
-        checkpoint_path=path,
-    )
-    res = smmc.simulate_stats(
-        GAUSS, n, t, seed=1, options=OPTS, checkpoint_path=path,
-    )
-    assert res.moments.n == n
 
 
 def test_histogram_mode_fingerprint_guard(tmp_path):

@@ -6,7 +6,7 @@ import os
 import numpy as np
 import pytest
 
-from stock_market_monte_carlo_tpu.cli.main import main
+from stock_market_monte_carlo_jax.cli.main import main
 
 
 def _run(argv, tmp_path, monkeypatch, capsys):

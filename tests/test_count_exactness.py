@@ -16,9 +16,9 @@ import jax
 import numpy as np
 import pytest
 
-import stock_market_monte_carlo_tpu as smmc
-from stock_market_monte_carlo_tpu.config import EngineOptions
-from stock_market_monte_carlo_tpu.parallel.mesh import paths_mesh
+import stock_market_monte_carlo_jax as smmc
+from stock_market_monte_carlo_jax.config import EngineOptions
+from stock_market_monte_carlo_jax.parallel.mesh import paths_mesh
 
 # 2^24 + 4097: odd, one dispatch on an 8-device mesh at 2^22-path chunks
 N_PATHS = 2**24 + 4097
@@ -33,7 +33,7 @@ def test_mesh_counts_exact_past_f32_range():
         n_periods=1,
         seed=3,
         target_amount=1e30,  # every final is below: count_below == n
-        options=EngineOptions(chunk_paths=2**22, backend="xla"),
+        options=EngineOptions(chunk_paths=2**22),
         mesh=mesh,
     )
     # f32 would round the odd 16781313 to an even neighbour

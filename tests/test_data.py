@@ -4,7 +4,7 @@ import os
 import numpy as np
 import pytest
 
-from stock_market_monte_carlo_tpu.data.loader import (
+from stock_market_monte_carlo_jax.data.loader import (
     SYNTHETIC_CSV,
     default_returns_path,
     read_historical_returns,
@@ -65,7 +65,7 @@ def test_default_path_env_override(tmp_path, monkeypatch):
 
 
 def test_synthetic_generator_is_deterministic():
-    from stock_market_monte_carlo_tpu.data import _synthetic
+    from stock_market_monte_carlo_jax.data import _synthetic
 
     a = _synthetic.synthetic_monthly_returns()
     b = _synthetic.synthetic_monthly_returns()

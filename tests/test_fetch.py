@@ -12,10 +12,10 @@ import pytest
 
 pd = pytest.importorskip("pandas")
 
-from stock_market_monte_carlo_tpu.data.fetch import (  # noqa: E402
+from stock_market_monte_carlo_jax.data.fetch import (  # noqa: E402
     monthly_returns_from_daily,
 )
-from stock_market_monte_carlo_tpu.data.loader import (  # noqa: E402
+from stock_market_monte_carlo_jax.data.loader import (  # noqa: E402
     read_historical_returns,
 )
 
@@ -87,8 +87,8 @@ def test_e2e_fetch_to_engine_pipeline(tmp_path):
     full pipe a first networked machine exercises via
     scripts/onboard_real_data.py (ref: get_data.py:11-72 feeding
     simulations.cu:123)."""
-    import stock_market_monte_carlo_tpu as smmc
-    from stock_market_monte_carlo_tpu.ops import analytic as an
+    import stock_market_monte_carlo_jax as smmc
+    from stock_market_monte_carlo_jax.ops import analytic as an
 
     # 150 months of business days with S&P-like noisy monthly levels:
     # deterministic, but NOT constant — the e2e check needs real variance

@@ -9,18 +9,18 @@ drive a real slider change and assert the recomputed statistics against
 the histogram oracle.
 """
 
-import matplotlib
-
-matplotlib.use("Agg")
-
 import numpy as np
 import pytest
 
-import stock_market_monte_carlo_tpu as smmc
-from stock_market_monte_carlo_tpu.ops.reductions import (
+# matplotlib is an optional dependency (viz/ imports it lazily)
+matplotlib = pytest.importorskip("matplotlib")
+matplotlib.use("Agg")
+
+import stock_market_monte_carlo_jax as smmc
+from stock_market_monte_carlo_jax.ops.reductions import (
     prob_below_from_histogram,
 )
-from stock_market_monte_carlo_tpu.viz.gui import InteractiveWindow
+from stock_market_monte_carlo_jax.viz.gui import InteractiveWindow
 
 N, T = 30_000, 36
 
@@ -75,7 +75,7 @@ def test_slider_matches_result_prob(window_after_run):
 def test_gui_cli_flag_headless(tmp_path, capsys):
     """`smmc visualize --gui` end-to-end on Agg: builds the window,
     streams the run through it, never blocks."""
-    from stock_market_monte_carlo_tpu.viz.live import live_visualize
+    from stock_market_monte_carlo_jax.viz.live import live_visualize
 
     res = live_visualize(
         n_months=12, n_simulations=8192, model_kind="gaussian",
@@ -92,7 +92,7 @@ def test_demo_window_widgets_drive_recompute():
     """`smmc demo-gui` counterpart of the reference's example_imgui
     stock demo: every widget kind fires its callback programmatically
     and demonstrably changes the live mini-simulation."""
-    from stock_market_monte_carlo_tpu.viz.demo import DemoWindow
+    from stock_market_monte_carlo_jax.viz.demo import DemoWindow
 
     win = DemoWindow(seed=1)
     try:

@@ -2,10 +2,10 @@
 
 Every published cross-check so far ran on the benign 1127-row synthetic
 S&P-like table. These tests re-run the exact-law oracle chain and the
-sliced-rotation sampler machinery on HOSTILE tables — heavy tails
+bootstrap sampler on HOSTILE tables — heavy tails
 (t(2.5) body, kurtosis ~26), sticky crash clusters, pinned -85%/+120%
-months, and table sizes far from 1127 on both sides (n=97 < one
-128-lane tile; n=32749 near the 2^15-1 exact-index-map bound,
+months, and table sizes far from 1127 on both sides (n=97; n=32749
+near the 2^15-1 exact-index-map bound,
 engine._validate_run) — flushing out latent table-shape assumptions of
 the kind the reference hard-codes (its 1127-row shared-memory buffer,
 /root/reference/src/simulations.cu:123, would silently corrupt on any
@@ -15,16 +15,16 @@ other table).
 import numpy as np
 import pytest
 
-import stock_market_monte_carlo_tpu as smmc
-from stock_market_monte_carlo_tpu.config import EngineOptions
-from stock_market_monte_carlo_tpu.data._synthetic import (
+import stock_market_monte_carlo_jax as smmc
+from stock_market_monte_carlo_jax.config import EngineOptions
+from stock_market_monte_carlo_jax.data._synthetic import (
     hostile_monthly_returns,
 )
-from stock_market_monte_carlo_tpu.data.loader import (
+from stock_market_monte_carlo_jax.data.loader import (
     HOSTILE_CSV,
     read_historical_returns,
 )
-from stock_market_monte_carlo_tpu.ops import analytic as an
+from stock_market_monte_carlo_jax.ops import analytic as an
 
 SIZES = (97, 32749)
 
@@ -133,9 +133,7 @@ def test_terminal_law_sampler_hostile_long_horizon(hostile_model):
 
 
 def test_chunk_invariance_hostile_big_table():
-    """Chunk-size invariance must hold with the 32749-row table (the
-    gather's sliced-rotation index map touches 256 table rows per
-    draw)."""
+    """Chunk-size invariance must hold with the 32749-row table."""
     model = smmc.HistoricalBootstrap(hostile_monthly_returns(32749))
     kw = dict(n_periods=13, seed=5, target_amount=500.0)
     a = smmc.simulate_stats(model, 3 * 8192 + 11,
@@ -171,39 +169,3 @@ def test_table_bound_rejected_above_2pow15():
     )
     with pytest.raises(ValueError, match="32767"):
         smmc.simulate_stats(model, 8192, 12, seed=1)
-
-
-@pytest.mark.parametrize("n_table", SIZES)
-def test_sliced_rotation_uniform_on_hostile_sizes(n_table):
-    """The one-gather sampler's numpy replica (tests/test_rng.py) must
-    select every row with probability exactly 1/n and never a padding
-    row at n=97 (< one lane tile) and n=32749 (near the 2^15 bound) —
-    same chi-square contract as test_sliced_rotation_bootstrap_is_uniform
-    at its benign sizes."""
-    from tests.test_rng import _sliced_rotation_draw
-
-    rng = np.random.default_rng(2026)
-    rows = 4096
-    k = -(-n_table // 128)
-    tail_n = n_table - 128 * (k - 1)
-    reps = 80 if n_table > 1000 else 10
-    counts = np.zeros(k * 128 + 128, np.int64)
-    for _ in range(reps):
-        words = rng.integers(0, 2 ** 32, size=(rows, 128), dtype=np.uint32)
-        idx = _sliced_rotation_draw(words, n_table)
-        counts += np.bincount(idx.ravel(), minlength=k * 128 + 128)
-    # flat ids are (chunk, lane): c*128 + w, valid lanes w < tail_n in
-    # the last chunk
-    flat_valid = np.zeros(k * 128 + 128, bool)
-    for c in range(k):
-        width = 128 if c < k - 1 else tail_n
-        flat_valid[c * 128:c * 128 + width] = True
-    assert counts[~flat_valid].sum() == 0, "padding rows were selected"
-    got = counts[flat_valid].astype(np.float64)
-    n = got.sum()
-    expected = n / n_table
-    chi2 = ((got - expected) ** 2 / expected).sum()
-    dof = n_table - 1
-    # rotation makes sampling slightly balanced (sub-iid): only the
-    # upper bound matters (see test_rng)
-    assert chi2 < dof + 6 * np.sqrt(2 * dof), (chi2, dof)

@@ -1,6 +1,6 @@
 import numpy as np
 
-from stock_market_monte_carlo_tpu.utils import io
+from stock_market_monte_carlo_jax.utils import io
 
 
 def test_write_data_file_schema(tmp_path, capsys):

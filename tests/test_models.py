@@ -2,7 +2,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from stock_market_monte_carlo_tpu.models.market import (
+from stock_market_monte_carlo_jax.models.market import (
     GaussianReturns,
     HistoricalBootstrap,
 )

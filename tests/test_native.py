@@ -3,7 +3,7 @@
 import numpy as np
 import pytest
 
-from stock_market_monte_carlo_tpu import native
+from stock_market_monte_carlo_jax import native
 
 pytestmark = pytest.mark.skipif(
     not native.available(), reason="native library not built"
@@ -11,7 +11,7 @@ pytestmark = pytest.mark.skipif(
 
 
 def test_csv_reader_parity_with_python(historical_table):
-    from stock_market_monte_carlo_tpu.data.loader import SYNTHETIC_CSV
+    from stock_market_monte_carlo_jax.data.loader import SYNTHETIC_CSV
 
     r = native.native_read_returns(SYNTHETIC_CSV)
     np.testing.assert_array_equal(r, historical_table)
@@ -51,7 +51,7 @@ def test_sobol_cross_check_device_generator():
     random-access generator exactly (unscrambled)."""
     import jax.numpy as jnp
 
-    from stock_market_monte_carlo_tpu.ops import sobol as sb
+    from stock_market_monte_carlo_jax.ops import sobol as sb
 
     d = sb.direction_numbers(7)
     for offset in (0, 1, 1000, 123457):
@@ -80,7 +80,7 @@ def test_stale_library_missing_symbol_falls_back(monkeypatch):
     _configure) must not break the native module — it falls back."""
     import importlib
 
-    from stock_market_monte_carlo_tpu import native
+    from stock_market_monte_carlo_jax import native
 
     monkeypatch.setattr(native, "_LIB", None)
     monkeypatch.setattr(native, "_LOAD_ATTEMPTED", False)

@@ -2,7 +2,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from stock_market_monte_carlo_tpu.ops import normal as nm
+from stock_market_monte_carlo_jax.ops import normal as nm
 
 
 def _phi_ref(x):

@@ -1,7 +1,7 @@
 import numpy as np
 import pytest
 
-from stock_market_monte_carlo_tpu.parallel import device_count, paths_mesh
+from stock_market_monte_carlo_jax.parallel import device_count, paths_mesh
 
 
 def test_paths_mesh_all_devices():
@@ -26,9 +26,9 @@ def test_mesh_subset():
 
 
 def test_engine_with_helper_mesh():
-    import stock_market_monte_carlo_tpu as smmc
-    from stock_market_monte_carlo_tpu.config import EngineOptions
-    from stock_market_monte_carlo_tpu.engine.engine import KEY_TILE
+    import stock_market_monte_carlo_jax as smmc
+    from stock_market_monte_carlo_jax.config import EngineOptions
+    from stock_market_monte_carlo_jax.engine.engine import KEY_TILE
 
     res = smmc.simulate_stats(
         smmc.GaussianReturns(), 8 * KEY_TILE, 6, seed=0,

@@ -2,7 +2,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from stock_market_monte_carlo_tpu.ops import reductions as red
+from stock_market_monte_carlo_jax.ops import reductions as red
 
 
 def test_packed_stats_and_merge_match_numpy():

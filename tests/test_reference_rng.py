@@ -2,17 +2,15 @@
 
 ``HistoricalBootstrap(rng="reference")`` replays the reference CUDA
 kernel's recipe (state0 = rand_pcg(path_id+1), one xorshift per month,
-src/simulations.cu:140-150). These tests pin the XLA engine to an
-independent pure-Python implementation; the Pallas kernel implements the
-same integer arithmetic and is cross-checked on TPU hardware
-(tests/test_tpu_only.py).
+src/simulations.cu:140-150). These tests pin the engine to an
+independent pure-Python implementation.
 """
 
 import jax.numpy as jnp
 import numpy as np
 
-import stock_market_monte_carlo_tpu as smmc
-from stock_market_monte_carlo_tpu.ops import rng as r
+import stock_market_monte_carlo_jax as smmc
+from stock_market_monte_carlo_jax.ops import rng as r
 
 M32 = 0xFFFFFFFF
 

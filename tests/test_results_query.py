@@ -3,7 +3,7 @@
 import numpy as np
 import pytest
 
-import stock_market_monte_carlo_tpu as smmc
+import stock_market_monte_carlo_jax as smmc
 
 GAUSS = smmc.GaussianReturns(mean_pct=0.5, std_pct=10.0 / 12)
 

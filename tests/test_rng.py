@@ -12,7 +12,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from stock_market_monte_carlo_tpu.ops import rng as r
+from stock_market_monte_carlo_jax.ops import rng as r
 
 M32 = 0xFFFFFFFF
 
@@ -140,18 +140,6 @@ def test_bootstrap_index_mapping_matches_reference():
     assert idx[2] == 1126  # clamped to table size
 
 
-def test_tile_seed_avalanche():
-    seeds = np.asarray(
-        [int(r.tile_seed(0, t)) for t in range(1024)], np.uint64
-    )
-    assert len(np.unique(seeds)) == 1024
-    # bit balance: each of the 32 bits set ~half the time
-    bits = (
-        (seeds[:, None] >> np.arange(32, dtype=np.uint64)) & 1
-    ).mean(axis=0)
-    assert np.all(np.abs(bits - 0.5) < 0.1)
-
-
 def test_path_tile_keys_deterministic_and_distinct():
     k = jax.random.key(0)
     a = r.path_tile_keys(k, jnp.uint32(0), 4)
@@ -160,77 +148,3 @@ def test_path_tile_keys_deterministic_and_distinct():
     db = jax.random.key_data(b)
     np.testing.assert_array_equal(da[2], db[0])  # overlap at tile 2
     assert not np.array_equal(da[0], da[1])
-
-
-def _sliced_rotation_draw(words, n_table):
-    """Numpy replica of the Pallas sliced-rotation bootstrap draw
-    (ops/pallas_engine.py historical counter mode): one (rows, 128) uint32
-    word array -> one (rows, 128) table index per path. Must implement the
-    same integer arithmetic as the kernel."""
-    rows, lanes = words.shape
-    assert lanes == 128
-    k = -(-n_table // 128)
-    tail_n = n_table - 128 * (k - 1)
-    ll = np.broadcast_to(np.arange(128, dtype=np.int64), (rows, 128))
-    n_valid = np.where(ll < tail_n, k, k - 1).astype(np.uint64)
-    # source role: chunk from the wrap-around residual
-    r_res = (words.astype(np.uint64) * n_table) & 0xFFFFFFFF
-    cprime = (n_valid * r_res) >> np.uint64(32)
-    # dest role: column choice
-    idx_dest = (words.astype(np.uint64) * n_table) >> 32
-    b_row = (words[:, 0:1] & 127).astype(np.int64)
-    w_rot = (ll + b_row) & 127
-    w_col = np.where(idx_dest < tail_n, idx_dest, w_rot).astype(np.int64)
-    # gather combined[s] = entry (cprime_s, s) at column w
-    chunk_at_w = np.take_along_axis(cprime.astype(np.int64), w_col, axis=1)
-    return chunk_at_w * 128 + w_col
-
-
-@pytest.mark.parametrize("n_table", [1127, 300, 129, 128, 100])
-def test_sliced_rotation_bootstrap_is_uniform(n_table):
-    """The one-gather bootstrap scheme must sample every table entry with
-    probability exactly 1/n: P(w=j) * P(c'_j = c) = (K or K-1)/n * 1/n_j
-    = 1/n. Chi-square over a large sample of the exact integer math."""
-    rng = np.random.default_rng(7)
-    rows = 4096
-    reps = 30 if n_table > 500 else 10
-    counts = np.zeros(n_table + 128, np.int64)
-    for _ in range(reps):
-        words = rng.integers(0, 2**32, size=(rows, 128), dtype=np.uint32)
-        idx = _sliced_rotation_draw(words, n_table)
-        counts += np.bincount(idx.ravel(), minlength=n_table + 128)
-    # padding slots beyond the table must never be selected
-    k = -(-n_table // 128)
-    tail_n = n_table - 128 * (k - 1)
-    # entries are laid out (chunk, lane); valid flat ids < n via the
-    # (c, w) -> c*128 + w map only for w < tail_n at c == k-1
-    flat_valid = np.zeros(n_table + 128, bool)
-    for c in range(k):
-        width = 128 if c < k - 1 else tail_n
-        flat_valid[c * 128:c * 128 + width] = True
-    assert counts[~flat_valid].sum() == 0
-    got = counts[flat_valid].astype(np.float64)
-    n = got.sum()
-    expected = n / n_table
-    chi2 = ((got - expected) ** 2 / expected).sum()
-    dof = n_table - 1
-    # rotation makes sampling slightly balanced (sub-iid), so chi2 can run
-    # low; only the upper bound matters
-    assert chi2 < dof + 6 * np.sqrt(2 * dof), (chi2, dof)
-
-
-def test_sliced_rotation_bootstrap_row_mates_not_positively_correlated():
-    """Collision probability for two paths in the same row must not exceed
-    the iid baseline 1/n (the rotation branch is collision-free)."""
-    rng = np.random.default_rng(3)
-    n_table = 1127
-    rows, reps = 2048, 40
-    same = 0
-    total = 0
-    for _ in range(reps):
-        words = rng.integers(0, 2**32, size=(rows, 128), dtype=np.uint32)
-        idx = _sliced_rotation_draw(words, n_table)
-        same += int((idx[:, 0] == idx[:, 64]).sum())
-        total += rows
-    p = same / total
-    assert p < 1.0 / n_table * 1.5, p  # ~7.9e-4 expected, iid is 8.9e-4

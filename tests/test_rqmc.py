@@ -8,8 +8,8 @@ shrink at the QMC rate."""
 import numpy as np
 import pytest
 
-import stock_market_monte_carlo_tpu as smmc
-from stock_market_monte_carlo_tpu.engine.rqmc import _t_critical
+import stock_market_monte_carlo_jax as smmc
+from stock_market_monte_carlo_jax.engine.rqmc import _t_critical
 
 
 def test_t_table_values():

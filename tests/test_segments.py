@@ -16,9 +16,9 @@ device memory and its seeding is non-reproducible by construction
 import numpy as np
 import pytest
 
-import stock_market_monte_carlo_tpu as smmc
-from stock_market_monte_carlo_tpu.config import EngineOptions
-from stock_market_monte_carlo_tpu.engine.engine import KEY_TILE
+import stock_market_monte_carlo_jax as smmc
+from stock_market_monte_carlo_jax.config import EngineOptions
+from stock_market_monte_carlo_jax.engine.engine import KEY_TILE
 
 KT = KEY_TILE
 SEG = 2 * KT
@@ -78,7 +78,7 @@ def test_segmented_historical_terminal_law():
     run merges to the same histogram mass and sane moments."""
     hist = smmc.HistoricalBootstrap.from_csv()
     n = SEG + KT + 777
-    o = opts(terminal_law=True, backend="xla")  # CPU full fidelity
+    o = opts(terminal_law=True)
     r = smmc.simulate_stats(hist, n, 120, seed=3, target_amount=2000.0,
                             options=o)
     assert r.moments.n == n

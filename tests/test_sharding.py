@@ -9,9 +9,9 @@ and to reduction-order rounding for the merged statistics.
 import jax.numpy as jnp
 import numpy as np
 
-import stock_market_monte_carlo_tpu as smmc
-from stock_market_monte_carlo_tpu.config import EngineOptions
-from stock_market_monte_carlo_tpu.engine.engine import KEY_TILE
+import stock_market_monte_carlo_jax as smmc
+from stock_market_monte_carlo_jax.config import EngineOptions
+from stock_market_monte_carlo_jax.engine.engine import KEY_TILE
 
 GAUSS = smmc.GaussianReturns(mean_pct=0.5, std_pct=10.0 / 12)
 OPTS = EngineOptions(chunk_paths=KEY_TILE)

@@ -3,8 +3,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-import stock_market_monte_carlo_tpu as smmc
-from stock_market_monte_carlo_tpu.ops import sobol as sb
+import stock_market_monte_carlo_jax as smmc
+from stock_market_monte_carlo_jax.ops import sobol as sb
 
 
 def test_primitive_polynomials_known_small_degrees():
@@ -145,7 +145,7 @@ def test_sobol_bits64_matches_32bit_at_low_indices():
                                     (1 << 45) + 999])
 def test_sobol_bits64_matches_native_beyond_32bit(offset):
     """Device fold at >2^31 / >2^32 offsets vs the C++ 64-bit generator."""
-    from stock_market_monte_carlo_tpu import native
+    from stock_market_monte_carlo_jax import native
 
     if not native.available():
         pytest.skip("native library not built")
@@ -162,7 +162,7 @@ def test_sobol_bits64_matches_native_beyond_32bit(offset):
 
 
 def test_f64_host_points_match_native():
-    from stock_market_monte_carlo_tpu import native
+    from stock_market_monte_carlo_jax import native
 
     if not native.available():
         pytest.skip("native library not built")
@@ -207,7 +207,7 @@ def test_deep_index_validation():
 
 def test_tau_sobol_reference_table():
     """Bratley-Fox favorable-seed table (ref: sobol.cpp:28467-28560)."""
-    from stock_market_monte_carlo_tpu.ops.sobol import (
+    from stock_market_monte_carlo_jax.ops.sobol import (
         favorable_index_offset,
         tau_sobol,
     )

@@ -2,10 +2,7 @@
 
 The fit is validated against the deterministic FFT oracles
 (ops/analytic.py) on the host; engine statistics are validated at full
-fidelity through the XLA backend (tile-keyed threefry normals); the
-Pallas kernel's composition runs under the TPU-semantics interpreter
-(hardware-PRNG zero stub — statistics for that path are hardware tests,
-tests/test_tpu_only.py).
+fidelity (tile-keyed threefry normals).
 
 Reference: no analog — the reference benchmarks only month-loop kernels
 (README.md:66-75); this is the framework's algorithmic upgrade
@@ -14,15 +11,15 @@ Reference: no analog — the reference benchmarks only month-loop kernels
 import numpy as np
 import pytest
 
-import stock_market_monte_carlo_tpu as smmc
-from stock_market_monte_carlo_tpu.config import EngineOptions
-from stock_market_monte_carlo_tpu.engine import engine as eng
-from stock_market_monte_carlo_tpu.models.strategies import (
+import stock_market_monte_carlo_jax as smmc
+from stock_market_monte_carlo_jax.config import EngineOptions
+from stock_market_monte_carlo_jax.engine import engine as eng
+from stock_market_monte_carlo_jax.models.strategies import (
     FixedAmountWithdrawal,
     FixedPercentWithdrawal,
 )
-from stock_market_monte_carlo_tpu.ops import analytic
-from stock_market_monte_carlo_tpu.ops import terminal_law as tlaw
+from stock_market_monte_carlo_jax.ops import analytic
+from stock_market_monte_carlo_jax.ops import terminal_law as tlaw
 
 GAUSS = smmc.GaussianReturns()
 LAW = EngineOptions(terminal_law=True)
@@ -226,199 +223,3 @@ def test_law_checkpoint_resume(tmp_path):
             GAUSS, 4 * eng.KEY_TILE, 60, seed=9,
             options=EngineOptions(chunk_paths=eng.KEY_TILE),
             checkpoint_path=ck)
-
-
-# ---------------------------------------------------------------------------
-# Pallas kernel composition (TPU-semantics interpreter; zero-bit PRNG
-# stub -> constant draws. Statistics on hardware:
-# tests/test_tpu_only.py::test_terminal_law_parity).
-# ---------------------------------------------------------------------------
-
-
-def test_law_pallas_composition():
-    opts = EngineOptions(terminal_law=True, backend="pallas",
-                         chunk_paths=8192)
-    n = 2 * 8192 + 100
-    r = smmc.simulate_stats(GAUSS, n, 360, target_amount=2000.0,
-                            options=opts)
-    m = r.moments
-    assert m.n == n
-    assert np.isfinite(m.mean) and m.mean > 0
-    assert r.histogram_counts.sum() == n
-    # the zero-bit stub draws u = 2^-24 everywhere -> every final equals
-    # the law's z(2^-24) quantile; min == max pins the mapping
-    fv = smmc.simulate_final_values(GAUSS, 8192, 360, options=opts)
-    assert fv.min() == fv.max()
-    fit = tlaw.fit_terminal_law(GAUSS, smmc.NoWithdrawal(), 360, 1000.0)
-    u = np.float32(2.0**-24)
-    z = np.sqrt(2.0) * _erfinv_np(2.0 * u - 1.0)
-    want = fit.scale * np.exp(float(tlaw.clenshaw_f32(
-        fit.coefs, np.float32(z / tlaw.LAW_ZMAX))))
-    assert abs(fv[0] / want - 1.0) < 1e-4
-
-    # stats-only (histogram=False) composes too
-    r2 = smmc.simulate_stats(GAUSS, 8192, 360, options=EngineOptions(
-        terminal_law=True, backend="pallas", chunk_paths=8192,
-        histogram=False))
-    assert np.isfinite(r2.moments.mean)
-
-
-def _erfinv_np(x):
-    """Float32 replica of ops/pallas_engine._erfinv_poly for the stub
-    cross-check above (Giles 2010 single-precision branch)."""
-    import jax.numpy as jnp
-
-    from stock_market_monte_carlo_tpu.ops.pallas_engine import (
-        _erfinv_poly,
-    )
-
-    return float(_erfinv_poly(jnp.float32(x)))
-
-
-def test_law_statsonly_kernel_matches_finals_kernel():
-    """The finals-free grouped law kernel (pallas_engine.
-    _build_law_stats_kernel) must reproduce the finals kernel's stats and
-    histogram from the SAME per-tile streams. Under the CPU interpreter
-    the PRNG stub makes every draw identical, which still pins the
-    grouped seeding order, ragged masking, group/grid accumulation and
-    the constant-index-map histogram block against the per-tile
-    reference; hardware runs the same identity at full entropy
-    (tests/test_tpu_only.py::test_law_statsonly_matches_finals_kernel)."""
-    import jax
-    import jax.numpy as jnp
-
-    from stock_market_monte_carlo_tpu.ops import pallas_engine as pe
-    from stock_market_monte_carlo_tpu.ops import reductions as red
-
-    fit = tlaw.fit_terminal_law(GAUSS, smmc.NoWithdrawal(), 360, 1000.0)
-    law_op = jnp.asarray(fit.operand())
-    spec = red.HistogramSpec(lo=10.0, hi=1e6, n_bins=4094)
-    key = jax.random.key(9)
-    kw = dict(n_periods=360, chunk_shape_b=4 * pe.TILE_PATHS, spec=spec,
-              sampler="law")
-    # ragged: last 1000 paths of the chunk are masked padding
-    valid = 4 * pe.TILE_PATHS - 1000
-    a = pe.pallas_chunk_stats(
-        GAUSS, smmc.NoWithdrawal(), key, law_op, jnp.float32(1000.0),
-        jnp.uint32(0), valid, jnp.float32(2000.0), keep_finals=False,
-        **kw)
-    b = pe.pallas_chunk_stats(
-        GAUSS, smmc.NoWithdrawal(), key, law_op, jnp.float32(1000.0),
-        jnp.uint32(0), valid, jnp.float32(2000.0), keep_finals=True,
-        **kw)
-    sa, ha = np.asarray(a[0], np.float64), np.asarray(a[1])
-    sb, hb = np.asarray(b[0], np.float64), np.asarray(b[1])
-    # histogram counts are integers accumulated exactly in both paths
-    np.testing.assert_array_equal(ha, hb)
-    assert ha.sum() == valid
-    # moment rows: identical addends, different (tree) association —
-    # the zero-bit stub makes all 31768 addends equal, the worst case
-    # for f32 reassociation drift (measured ~1e-6 relative)
-    np.testing.assert_allclose(sa, sb, rtol=5e-6, atol=1e-9)
-    # min/max/count rows are order-independent: exact
-    np.testing.assert_array_equal(sa[5:8], sb[5:8])
-
-    # no-histogram variant composes and agrees on the moment rows
-    c = pe.pallas_chunk_stats(
-        GAUSS, smmc.NoWithdrawal(), key, law_op, jnp.float32(1000.0),
-        jnp.uint32(0), valid, jnp.float32(2000.0), keep_finals=False,
-        with_hist=False, **kw)
-    np.testing.assert_array_equal(np.asarray(c[0]), np.asarray(a[0]))
-    assert np.asarray(c[1]).sum() == 0.0
-
-
-def test_law_onehot_i8_matches_bf16_control():
-    """The int8-indicator MXU histogram (SMMC_LAW_OH default) must count
-    identically to the original bf16/f32 trace: one-hots are exact in
-    both dtypes and per-cell counts <= 2^24 make the int32 accumulate +
-    f32 cast lossless (experiments/exp_law_oh.py measures the speed
-    side on hardware)."""
-    import jax
-    import jax.numpy as jnp
-
-    from stock_market_monte_carlo_tpu.ops import pallas_engine as pe
-    from stock_market_monte_carlo_tpu.ops import reductions as red
-
-    fit = tlaw.fit_terminal_law(GAUSS, smmc.NoWithdrawal(), 120, 1000.0)
-    law_op = jnp.asarray(fit.operand())
-    spec = red.HistogramSpec(lo=10.0, hi=1e6, n_bins=4094)
-    key = jax.random.key(11)
-    kw = dict(n_periods=120, chunk_shape_b=4 * pe.TILE_PATHS, spec=spec,
-              sampler="law", keep_finals=False)
-    args = (GAUSS, smmc.NoWithdrawal(), key, law_op, jnp.float32(1000.0),
-            jnp.uint32(0), 4 * pe.TILE_PATHS - 777, jnp.float32(2000.0))
-
-    # the dtype pair is an explicit builder argument (law_oh_i8), so the
-    # two traces are requested directly — no module-global monkeypatching
-    a = pe.pallas_chunk_stats(*args, law_oh_i8=True, **kw)
-    sa, ha = np.asarray(a[0]), np.asarray(a[1])
-    b = pe.pallas_chunk_stats(*args, law_oh_i8=False, **kw)
-    sb, hb = np.asarray(b[0]), np.asarray(b[1])
-
-    np.testing.assert_array_equal(ha, hb)
-    assert ha.sum() == 4 * pe.TILE_PATHS - 777
-    # moment rows don't touch the histogram path at all: bit-identical
-    np.testing.assert_array_equal(sa, sb)
-
-
-def test_law_group_divisors():
-    from stock_market_monte_carlo_tpu.ops import pallas_engine as pe
-    from stock_market_monte_carlo_tpu.ops.pallas_engine import _law_group
-
-    assert _law_group(1) == 1
-    assert _law_group(3) == 1
-    assert _law_group(6) == 2
-    assert _law_group(16) == min(16, pe.LAW_GROUP)
-    assert _law_group(2048) == pe.LAW_GROUP
-    assert _law_group(12) == 4
-
-
-def test_law_group_size_invariance():
-    """The grid group size (SMMC_LAW_GROUP) only re-associates the f32
-    moment accumulation — streams are seeded per GLOBAL tile, so the
-    histogram / min / max / count-below must be bit-identical and the
-    moment rows equal to f32-reassociation tolerance across group
-    sizes. Guards the env knob (and any future LAW_GROUP retune)
-    against accidentally entangling group position with seeding.
-    Runs under the TPU-semantics interpreter (hardware-PRNG kernel:
-    streams are the documented all-zeros stub off-TPU), so this checks
-    grouping/accumulation composition, not statistics."""
-    import jax
-    import jax.numpy as jnp
-
-    from stock_market_monte_carlo_tpu.ops import pallas_engine as pe
-    from stock_market_monte_carlo_tpu.ops import reductions as red
-
-    fit = tlaw.fit_terminal_law(GAUSS, smmc.NoWithdrawal(), 60, 1000.0)
-    law_op = jnp.asarray(fit.operand())
-    spec = red.HistogramSpec(lo=10.0, hi=1e6, n_bins=4094)
-    ntiles = 8
-    valid = ntiles * pe.TILE_PATHS - 321
-    tile0 = jax.lax.bitcast_convert_type(jnp.uint32(0), jnp.int32)
-    iscal = jnp.stack([jnp.int32(12345), tile0, jnp.int32(valid),
-                       jnp.int32(spec.n_bins + 2)] + [jnp.int32(0)] * 4)
-    fscal = jnp.stack([
-        jnp.float32(1000.0), jnp.float32(2000.0),
-        jnp.float32(spec.log_lo), jnp.float32(1.0 / spec.width),
-        jnp.float32(0.0), jnp.float32(1.0 / tlaw.LAW_ZMAX),
-        jnp.float32(0), jnp.float32(0),
-    ])
-    law2d = law_op.reshape(-1, 1)
-
-    outs = {}
-    for group in (1, 2, 8):
-        call = pe._build_law_stats_call(
-            ntiles // group, group, pe.interpret_mode("gaussian"), True)
-        p, h = call(iscal, fscal, law2d)
-        stats = np.asarray(
-            p.reshape(-1, pe.N_PARTIAL_ROWS, 128).sum(axis=(0, 2)),
-            np.float64)
-        outs[group] = (stats, np.asarray(h))
-
-    base_s, base_h = outs[1]
-    for group in (2, 8):
-        s, h = outs[group]
-        np.testing.assert_array_equal(h, base_h)
-        np.testing.assert_allclose(s[:4], base_s[:4], rtol=5e-6)
-        np.testing.assert_array_equal(s[6:], base_s[6:])
-    assert base_h.sum() == valid

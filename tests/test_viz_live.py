@@ -7,10 +7,10 @@ import io
 import numpy as np
 import pytest
 
-import stock_market_monte_carlo_tpu as smmc
-from stock_market_monte_carlo_tpu.config import EngineOptions
-from stock_market_monte_carlo_tpu.engine.engine import KEY_TILE
-from stock_market_monte_carlo_tpu.viz.live import (
+import stock_market_monte_carlo_jax as smmc
+from stock_market_monte_carlo_jax.config import EngineOptions
+from stock_market_monte_carlo_jax.engine.engine import KEY_TILE
+from stock_market_monte_carlo_jax.viz.live import (
     LiveDashboard,
     query_loop,
     unicode_histogram,
@@ -140,7 +140,7 @@ def test_no_live_interactive_query(monkeypatch, tmp_path):
     import matplotlib
 
     matplotlib.use("Agg")
-    from stock_market_monte_carlo_tpu.viz.live import live_visualize
+    from stock_market_monte_carlo_jax.viz.live import live_visualize
 
     monkeypatch.chdir(tmp_path)
     monkeypatch.setattr("sys.stdin", io.StringIO("1e12\nquit\n"))
@@ -157,7 +157,7 @@ def test_live_fan_renders_frames_during_run(tmp_path):
     chunks -> multiple PNG frames, curves accumulating across frames, the
     final frame drawing the full capped set (the reference GUI's
     during-run fan, visualize_returns_cpu.cpp:372-404)."""
-    from stock_market_monte_carlo_tpu.viz.live_fan import LiveFanFigure
+    from stock_market_monte_carlo_jax.viz.live_fan import LiveFanFigure
 
     fan = LiveFanFigure(
         GAUSS, 24, seed=3, target=1100.0, n_curves=30,
@@ -179,7 +179,7 @@ def test_live_fan_renders_frames_during_run(tmp_path):
 
 
 def test_live_fan_cli_flag(tmp_path, monkeypatch):
-    from stock_market_monte_carlo_tpu.cli.main import main
+    from stock_market_monte_carlo_jax.cli.main import main
 
     monkeypatch.chdir(tmp_path)
     main(["visualize", "12", "20000", "--model", "gaussian", "--no-live",

@@ -1,18 +1,17 @@
 """Pins the known-benign XLA-CPU algebraic-simplifier warning.
 
-Interpret-mode compiles of the terminal-law kernels log
-``algebraic_simplifier.cc ... circular simplification loop`` — a bounded
-safety-valve rerun cap on the unrolled 48-term Clenshaw chain, CPU-only
-(the TPU path compiles the kernel body via Mosaic) and numerically
-inert. Full analysis + bisection: docs/xla_simplifier_loop.md.
+CPU compiles of the terminal-law sampler's unrolled 48-term Clenshaw
+chain may log ``algebraic_simplifier.cc ... circular simplification
+loop`` — a bounded safety-valve rerun cap of the simplifier, numerically
+inert.
 
 These tests keep that diagnosis honest:
   1. the repro chain still compiles to results bit-exact vs an eager
      float32 replica (the capped simplifier output is correct), and
-  2. the production law kernel's interpret-mode compile emits NO
-     glog error lines other than the known benign pattern — if a jax
-     upgrade starts emitting anything new on this path, this fails and
-     the new error gets triaged instead of scrolling by in CI.
+  2. the production law path's compile emits NO glog error lines other
+     than the known benign pattern — if a jax upgrade starts emitting
+     anything new on this path, this fails and the new error gets
+     triaged instead of scrolling by in CI.
 """
 
 import os
@@ -81,28 +80,17 @@ def test_clenshaw_simplifier_output_is_bit_exact():
     assert not _unexpected_errors(proc.stderr), proc.stderr[-2000:]
 
 
-def test_law_kernel_interpret_compile_has_no_unexpected_xla_errors():
-    """The production finals-free law kernel (the computation that logs
-    region_0.XX[_spmd] in the multichip dryrun) must emit no glog error
-    line beyond the pinned benign pattern."""
+def test_law_path_compile_has_no_unexpected_xla_errors():
+    """The production terminal-law chunk program (engine._law_finals_xla
+    through simulate_stats) must emit no glog error line beyond the
+    pinned benign pattern."""
     proc = _run_cpu(
-        "import jax, jax.numpy as jnp\n"
-        "import stock_market_monte_carlo_tpu as smmc\n"
-        "from stock_market_monte_carlo_tpu.ops import pallas_engine as pe\n"
-        "from stock_market_monte_carlo_tpu.ops import terminal_law as tl\n"
-        "from stock_market_monte_carlo_tpu.ops import reductions as red\n"
-        "from stock_market_monte_carlo_tpu.models.strategies import "
-        "NoWithdrawal\n"
-        "g = smmc.GaussianReturns()\n"
-        "op = jnp.asarray(tl.fit_terminal_law(g, NoWithdrawal(), 4, "
-        "1000.0).operand())\n"
-        "spec = red.HistogramSpec(lo=10.0, hi=1e6, n_bins=4094)\n"
-        "out = pe.pallas_chunk_stats(\n"
-        "    g, NoWithdrawal(), jax.random.key(5), op, jnp.float32(1000.0),"
-        "    jnp.uint32(0), 8192, jnp.float32(2000.0), n_periods=4,\n"
-        "    chunk_shape_b=8192, spec=spec, sampler='law',\n"
-        "    keep_finals=False, with_hist=True)\n"
-        "print('HIST_SUM', float(out[1].sum()))\n"
+        "import stock_market_monte_carlo_jax as smmc\n"
+        "from stock_market_monte_carlo_jax.config import EngineOptions\n"
+        "r = smmc.simulate_stats(smmc.GaussianReturns(), 8192, 4,\n"
+        "    target_amount=2000.0, options=EngineOptions(\n"
+        "    terminal_law=True, chunk_paths=8192))\n"
+        "print('HIST_SUM', float(r.histogram_counts.sum()))\n"
     )
     assert proc.returncode == 0, proc.stderr[-2000:]
     assert "HIST_SUM 8192.0" in proc.stdout, proc.stdout
